@@ -1,4 +1,4 @@
-"""End-to-end training with vit-tpu: overfit a tiny ViT on synthetic data.
+"""End-to-end training with vit_tpu: overfit a tiny ViT on synthetic data.
 
 The reference is inference-only and scopes training out on its roadmap
 (reference README.md:31-33); this example demonstrates the training tier the
@@ -6,15 +6,10 @@ framework adds — ``vit_tpu.train.make_train_step`` — actually *learning*:
 a tiny ViT classifier is trained from random init on a 4-class synthetic
 pattern dataset until it fits the training set.
 
-    python examples/train_tiny.py                  # xla tier (any backend)
-    python examples/train_tiny.py --impl pallas    # hand-written kernel tier
-                                                   # (custom VJPs, TPU; use
-                                                   # JAX_PLATFORMS=cpu +
-                                                   # interpret mode off-TPU)
+    python examples/train_tiny.py                  # any backend
 
-Every step is one jit-compiled program: forward (any op tier), softmax
-cross-entropy, backward (custom VJPs on the pallas tier), AdamW update —
-see vit_tpu/train.py. Prints loss every ``--log-every`` steps and final
+Every step is one jit-compiled program: forward, softmax cross-entropy,
+backward (XLA autodiff), AdamW update — see vit_tpu/train.py. Prints loss every ``--log-every`` steps and final
 train accuracy.
 """
 
@@ -30,9 +25,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
-
-if os.environ.get("JAX_PLATFORMS"):
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 
 def make_dataset(n: int, size: int, num_classes: int,
@@ -59,7 +51,6 @@ def main(argv=None) -> float:
     p.add_argument("--steps", type=int, default=60)
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--n", type=int, default=64, help="dataset size")
-    p.add_argument("--impl", default="xla", choices=["xla", "pallas"])
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
@@ -78,8 +69,7 @@ def main(argv=None) -> float:
                                   seed=args.seed)
 
     init_fn, step_fn = make_train_step(
-        cfg, make_optimizer(learning_rate=args.lr, weight_decay=0.0),
-        impl=args.impl)
+        cfg, make_optimizer(learning_rate=args.lr, weight_decay=0.0))
     opt_state = init_fn(params)
 
     start = 0
@@ -111,7 +101,7 @@ def main(argv=None) -> float:
         print(f"saved {args.checkpoint} at step {start + args.steps}",
               flush=True)
 
-    logits = jax.jit(lambda p, x: forward(p, x, cfg, impl=args.impl))(
+    logits = jax.jit(lambda p, x: forward(p, x, cfg))(
         params, jnp.asarray(pixels))
     acc = float(np.mean(np.argmax(np.asarray(logits), -1) == labels))
     print(f"final loss {loss:.4f} (from {first_loss:.4f})  "

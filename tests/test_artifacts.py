@@ -9,10 +9,10 @@ from vit_tpu.bench.artifacts import selftest, write_perf_report
 
 
 def test_write_perf_report(tmp_path):
-    rows = [{"N": 256, "pallas_ms": 1.0, "xla_ms": 2.0},
-            {"N": 512, "pallas_ms": 2.0, "xla_ms": 4.0}]
+    rows = [{"N": 256, "cudnn_ms": 1.0, "xla_ms": 2.0},
+            {"N": 512, "cudnn_ms": 2.0, "xla_ms": 4.0}]
     out = write_perf_report("unit", rows, x_key="N",
-                            y_keys=["pallas_ms", "xla_ms"],
+                            y_keys=["cudnn_ms", "xla_ms"],
                             out_root=str(tmp_path))
     with open(os.path.join(out, "Performance.csv")) as f:
         got = list(csv.DictReader(f))
@@ -28,13 +28,24 @@ def test_selftest_passes_and_fails(capsys):
     assert "FAILED" in capsys.readouterr().out
 
 
-def test_published_csvs_are_sane():
+def test_published_csvs_are_sane(tmp_path, monkeypatch):
     # Round-1 lesson: a noise-dominated timing harness published negative
-    # times (-97 TFLOP/s) — every committed artifact must stay positive.
+    # times (-97 TFLOP/s) — every artifact the model sweep writes must stay
+    # positive, and so must every committed one.
     import glob
 
-    paths = glob.glob("benchmarks/**/*.csv", recursive=True)
-    assert paths, "published benchmark artifacts missing"
+    from vit_tpu.bench import model as M
+
+    times = iter([0.5, 3.0])
+    monkeypatch.setattr(M, "bench_chained",
+                        lambda step, reps, args: next(times))
+    monkeypatch.setattr(M, "init_params", lambda k, cfg: {})
+    rows = M.sweep(batches=[1, 32], reps=1)
+    write_perf_report("model", rows, x_key="batch", y_keys=["ms"],
+                      out_root=str(tmp_path), plot=False)
+    paths = glob.glob(str(tmp_path / "**" / "*.csv"), recursive=True)
+    paths += glob.glob("benchmarks/**/*.csv", recursive=True)
+    assert paths, "no benchmark artifact written"
     for p in paths:
         with open(p) as f:
             rows = list(csv.DictReader(f))
@@ -53,14 +64,13 @@ def test_read_committed_roundtrip(tmp_path):
     numerics as floats, skips blanks, and returns {} for a missing file."""
     from vit_tpu.bench.model import read_committed
 
-    rows = [{"batch": 1, "tpu_ms": 0.35, "tpu_img_per_s": 2858.5,
-             "hf_gpu": 4.7},
-            {"batch": 32, "tpu_ms": 6.768, "tpu_img_per_s": 4728.4}]
-    write_perf_report("m", rows, x_key="batch", y_keys=["tpu_ms"],
+    rows = [{"batch": 1, "ms": 0.5, "img_per_s": 2000.0, "hf_gpu": 4.7},
+            {"batch": 32, "ms": 8.0, "img_per_s": 4000.0}]
+    write_perf_report("m", rows, x_key="batch", y_keys=["ms"],
                       out_root=str(tmp_path), plot=False)
     got = read_committed("m", out_root=str(tmp_path))
     assert set(got) == {1, 32}
-    assert got[1]["tpu_ms"] == 0.35 and isinstance(got[1]["batch"], int)
+    assert got[1]["ms"] == 0.5 and isinstance(got[1]["batch"], int)
     assert "hf_gpu" not in got[32]  # blank cell skipped, not ""
     assert read_committed("nope", out_root=str(tmp_path)) == {}
 
@@ -71,15 +81,15 @@ def test_sweep_drift_gate_and_carry_forward(tmp_path, monkeypatch):
     the run did not re-measure (the round-4 bs=128-dropped-row lesson)."""
     from vit_tpu.bench import model as M
 
-    committed = {1: {"batch": 1, "tpu_ms": 1.0},
-                 64: {"batch": 64, "tpu_ms": 10.0}}
+    committed = {1: {"batch": 1, "ms": 1.0},
+                 64: {"batch": 64, "ms": 10.0}}
     times = iter([2.0, 1.4, 1.1])  # first noisy, then settling
     monkeypatch.setattr(M, "bench_chained",
                         lambda step, reps, args: next(times))
     monkeypatch.setattr(M, "init_params", lambda k, cfg: {})
     rows = M.sweep(batches=[1], reps=1, committed=committed)
     # median of [2.0, 1.4, 1.1] = 1.4
-    assert rows[0]["tpu_ms"] == 1.4
+    assert rows[0]["ms"] == 1.4
     # carry-forward merge (main()'s logic, exercised directly):
     measured = {r["batch"] for r in rows}
     carried = [committed[b] for b in sorted(committed) if b not in measured]
@@ -88,7 +98,7 @@ def test_sweep_drift_gate_and_carry_forward(tmp_path, monkeypatch):
 
 def test_serving_merge_rows(tmp_path, monkeypatch):
     """bench.serving row merge keys on (metric, quant, mesh) — a mesh run
-    must not clobber the on-TPU trace row, and vice versa."""
+    must not clobber the single-device trace row, and vice versa."""
     import vit_tpu.bench.serving as S
 
     monkeypatch.chdir(tmp_path)
@@ -114,3 +124,17 @@ def test_write_perf_report_html(tmp_path):
                             out_root=str(tmp_path))
     html = open(os.path.join(out, "results.html")).read()
     assert "<td>512</td>" in html and "<th>ms</th>" in html
+
+
+def test_forward_tflops_counts_real_tokens():
+    # 2*MAC over the 197 tokens the forward computes (no padding): B/16 at
+    # bs=1 is ~35.2 GFLOP (12 layers x 2.92 + the 0.23 patch projection).
+    from vit_tpu.bench.model import forward_tflops
+    from vit_tpu.config import ViTConfig
+
+    cfg = ViTConfig()
+    s, d, m = 197, 768, 3072
+    layer = 8 * s * d * d + 4 * s * s * d + 4 * s * d * m
+    want = (12 * layer + 2 * 196 * 768 * d) / 1e12
+    assert forward_tflops(cfg, 1) == pytest.approx(want)
+    assert forward_tflops(cfg, 32) == pytest.approx(32 * want)

@@ -1,6 +1,6 @@
 """Production-dtype (bf16) accuracy vs the fp32 HF oracle.
 
-The reference only ever runs fp32 (reference vit/vit.py:23); on TPU the
+The reference only ever runs fp32 (reference vit/vit.py:23); on the GPU the
 production inference dtype is bfloat16, so its deviation from the fp32
 oracle is a first-class quantity. Bound it explicitly.
 """

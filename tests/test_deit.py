@@ -54,20 +54,23 @@ def test_deit_end_to_end_parity():
     px = rng.standard_normal((2, 3, 32, 32)).astype(np.float32)
     with torch.no_grad():
         want = hf(torch.from_numpy(px)).last_hidden_state.numpy()
-    got = np.asarray(vit.forward(params, jnp.asarray(px), cfg, impl="xla"))
+    got = np.asarray(vit.forward(params, jnp.asarray(px), cfg))
     diff = np.abs(want - got).max()
     assert diff < 1e-4, f"max-abs-diff {diff}"
 
 
-def test_deit_pallas_interpret_matches_xla(rng):
+def test_deit_forward_matches_oracle(rng):
+    # Two prefix tokens through the whole forward vs the float64 oracle.
+    import np_oracle
+
     cfg = ViTConfig(image_size=32, patch_size=16, hidden_dim=64, num_heads=4,
                     num_layers=2, mlp_dim=128, num_prefix_tokens=2)
     params = vit.init_params(jax.random.key(0), cfg)
     px = jnp.asarray(rng.standard_normal((2, 3, 32, 32)), jnp.float32)
-    a = np.asarray(vit.forward(params, px, cfg, impl="xla"))
-    b = np.asarray(vit.forward(params, px, cfg, impl="pallas"))
+    a = np.asarray(vit.forward(params, px, cfg), np.float64)
     assert a.shape == (2, 6, 64)  # 4 patches + 2 prefix tokens
-    np.testing.assert_allclose(b, a, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(a, np_oracle.forward(params, px, cfg),
+                               rtol=0, atol=2e-5)
 
 
 def test_deit_classifier_import_both_variants(rng):
@@ -94,8 +97,7 @@ def test_deit_classifier_import_both_variants(rng):
         assert params["classifier"]["kernel"].shape == (48, 10)
 
         px = rng.standard_normal((2, 3, 32, 32)).astype(np.float32)
-        got = np.asarray(vit.forward(params, jnp.asarray(px), cfg,
-                                     impl="xla"))
+        got = np.asarray(vit.forward(params, jnp.asarray(px), cfg))
         with torch.no_grad():
             out = hf(torch.from_numpy(px)).logits.numpy()
         if cls is transformers.DeiTForImageClassification:

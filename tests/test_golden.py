@@ -52,7 +52,7 @@ def golden_params(fixture, tmp_path_factory):
 def test_golden_end_to_end(fixture, golden_params):
     params, cfg = golden_params
     px = jnp.asarray(golden_pixels(cfg, seed=int(fixture["pixels_seed"])))
-    got = np.asarray(forward(params, px, cfg, impl="xla"), np.float32)
+    got = np.asarray(forward(params, px, cfg), np.float32)
     want = fixture["final_hidden"]
     diff = np.abs(got - want).max()
     assert diff < 1e-3, f"end-to-end max|diff| vs torch recording: {diff}"
@@ -62,7 +62,7 @@ def test_golden_end_to_end(fixture, golden_params):
 def test_golden_mid_layer(fixture, golden_params):
     params, cfg = golden_params
     px = jnp.asarray(golden_pixels(cfg, seed=int(fixture["pixels_seed"])))
-    _, hiddens = forward_with_intermediates(params, px, cfg, impl="xla")
+    _, hiddens = forward_with_intermediates(params, px, cfg)
     mid = int(fixture["mid_layer"])
     diff = np.abs(np.asarray(hiddens[mid], np.float32)
                   - fixture["mid_hidden"]).max()
@@ -90,7 +90,7 @@ def test_real_pretrained_checkpoint():
     cfg = ViTConfig()
     params = params_from_safetensors(_real_checkpoint(), cfg)
     px = jnp.asarray(golden_pixels(cfg))
-    out = np.asarray(forward(params, px, cfg, impl="xla"), np.float32)
+    out = np.asarray(forward(params, px, cfg), np.float32)
     assert np.isfinite(out).all()
     # Real-checkpoint outputs have characteristic scale; a transposed or
     # mis-mapped load produces wildly different statistics.

@@ -1,18 +1,15 @@
 """Task-level int8 accuracy report: top-1 agreement vs the float model.
 
-The int8 tier's speed numbers (docs/QUANT.md) need the accuracy half of
-the tradeoff measured at task level, not just hidden-state error. This
+The int8 tier's speed (docs/QUANT.md) needs the accuracy half of the
+tradeoff measured at task level, not just hidden-state error. This
 tool builds the synthetic-golden ViT-B/16 (realistically scaled HF-layout
 weights, vit_tpu/weights/synthetic.py) with a seeded classifier head and
 compares, against the float forward:
 
 - ``w8``          — weight-only quantization error: int8 weights
-                    dequantized back to float, float activations
-                    (the error floor of the weight-streaming kernels
-                    mlp_block_q / encoder_stack_q, which never round
-                    activations)
-- ``w8a8``        — the full int8 tier (vit_tpu.quant.forward_quant, XLA
-                    formulation == the int8-dot mega-kernels' numerics:
+                    dequantized back to float, float activations (the
+                    error floor of any weight-only int8 scheme)
+- ``w8a8``        — the full int8 tier (vit_tpu.quant.forward_quant:
                     dynamic per-row activation quant, s8xs8->s32 dots)
 - ``w8a8+smooth`` — SmoothQuant-folded (vit_tpu.quant.smooth_params)
                     before quantization
@@ -27,7 +24,7 @@ Metrics: top-1 agreement with the float model, mean |Δ| of the top-1
 logit, max |Δ| over all logits, and hidden-state relative error.
 
 Usage:  python tools/quant_accuracy.py [--batch 8] [--outlier-gain 32]
-CPU-safe (fp32, XLA tier); ~5 min at the defaults on one CPU.
+Runs on any backend in fp32; ~5 min at the defaults on one CPU.
 """
 
 from __future__ import annotations
@@ -128,19 +125,19 @@ def run_case(case, params, cfg, px, alpha):
 
     print(f"case: {case}", flush=True)
     ref_l, ref_h = logits_and_hidden(
-        lambda p, x, c: forward(p, x, c, impl="xla"), params)
+        forward, params)
     rows = []
     q = quantize_params(params)
     rows.append(compare("w8", *logits_and_hidden(
-        lambda p, x, c: forward(p, x, c, impl="xla"), dequantize(q)),
+        forward, dequantize(q)),
         ref_l, ref_h))
     rows.append(compare("w8a8", *logits_and_hidden(
-        lambda p, x, c: forward_quant(p, x, c, impl="xla"), q),
+        forward_quant, q),
         ref_l, ref_h))
     sm = smooth_params(hparams, hcfg, px, alpha=alpha)
     qs = quantize_params(dict(sm, classifier=params["classifier"]))
     rows.append(compare("w8a8+smooth", *logits_and_hidden(
-        lambda p, x, c: forward_quant(p, x, c, impl="xla"), qs),
+        forward_quant, qs),
         ref_l, ref_h))
     for r in rows:
         r["case"] = case

@@ -1,8 +1,8 @@
 """ViT forward graph — a single jit-compiled functional program.
 
-This is the TPU-native redesign of the reference's torch module tree
+This is the XLA-native redesign of the reference's torch module tree
 (reference vit/vit.py:203-247: Embeddings -> Encoder -> final LayerNorm).
-Key departures, all TPU/XLA-idiomatic rather than translations:
+Key departures, all XLA-idiomatic rather than translations:
 
 - **Functional params pytree** instead of ``nn.Module`` state: the whole
   forward is one traced program; there is no per-op dispatch (the reference
@@ -14,7 +14,8 @@ Key departures, all TPU/XLA-idiomatic rather than translations:
 - **Fused full-width QKV** ``(D, 3D)`` matmul and batched multi-head
   attention instead of the reference's Python loop over 12 single-head
   modules with slice-assign (reference vit/vit.py:101-106) — head
-  parallelism becomes an MXU batch dimension.
+  parallelism becomes a GEMM batch dimension, and on the GPU the bf16
+  attention is one fused cuDNN call (:func:`vit_tpu.ops.attention`).
 - **Patch embedding as unfold+matmul** instead of the scalar-loop conv2d
   (reference vit/kernels/conv2d.py, its slowest kernel — SURVEY.md §6).
 
@@ -28,7 +29,6 @@ no pooler (output (B, 197, 768) for B/16, like HF
 from __future__ import annotations
 
 import functools
-import os
 from typing import Any
 
 import jax
@@ -87,177 +87,52 @@ def init_params(key: jax.Array, cfg: ViTConfig) -> Params:
     return params
 
 
-def embed(params: Params, pixels: jax.Array, cfg: ViTConfig, *,
-          impl: str | None = None, sp: int | None = None) -> jax.Array:
+def embed(params: Params, pixels: jax.Array, cfg: ViTConfig) -> jax.Array:
     """Patch-embed + CLS + position embeddings (reference vit/vit.py:173-200).
 
-    ``pixels``: (B, C, H, W) NCHW, any float dtype -> (B, seq_len, D) — or
-    (B, sp, D) zero-row-padded when ``sp`` is given and the fused embed
-    kernel is feasible on the pallas tier (the unpadded embedding then
-    never exists in HBM; see ops.embed_fused).
+    ``pixels``: (B, C, H, W) NCHW, any float dtype -> (B, seq_len, D).
     """
     b, c, h, w = pixels.shape
     assert (c, h, w) == (cfg.num_channels, cfg.image_size, cfg.image_size), (
         pixels.shape, cfg)
     e = params["embeddings"]
     dt = cfg.dtype
-    if (sp is not None and cfg.num_prefix_tokens == 1
-            and ops.resolve_impl(impl) == "pallas"
-            and ops.embed_fused_ok(b, cfg.num_patches, cfg.patch_dim,
-                                   cfg.hidden_dim, sp, jnp.dtype(dt).itemsize)):
-        patches = ops.patchify(pixels.astype(dt), cfg.patch_size, impl="xla")
-        patches = jax.lax.optimization_barrier(patches)
-        pos = e["position_embeddings"].reshape(cfg.seq_len, cfg.hidden_dim)
-        cls_row = (e["cls_token"].reshape(cfg.hidden_dim).astype(dt)
-                   + pos[0].astype(dt))
-        return ops.embed_fused(patches, e["patch_embed"]["kernel"],
-                               e["patch_embed"]["bias"], cls_row, pos[1:], sp)
     x = ops.patch_embed(pixels.astype(dt), e["patch_embed"]["kernel"],
-                        e["patch_embed"]["bias"], cfg.patch_size, impl=impl)
+                        e["patch_embed"]["bias"], cfg.patch_size)
     cls = jnp.broadcast_to(e["cls_token"].astype(dt),
                            (b, cfg.num_prefix_tokens, cfg.hidden_dim))
     x = jnp.concatenate([cls, x], axis=1)
     return x + e["position_embeddings"].astype(dt)
 
 
-def encoder_block(x: jax.Array, lp: Params, cfg: ViTConfig, *,
-                  impl: str | None = None,
-                  attention: str = "flash",
-                  fused: bool = True,
-                  seq_len: int | None = None) -> jax.Array:
+def encoder_block(x: jax.Array, lp: Params, cfg: ViTConfig) -> jax.Array:
     """One pre-LN transformer block (reference vit/vit.py:114-149).
 
-    ``lp`` holds this layer's slice of the stacked encoder params.
-    ``fused=True`` applies the LN->matmul and matmul->residual fusions
-    (single kernel passes on the pallas path; identical math either way);
-    ``fused=False`` keeps the reference's one-op-per-kernel chain.
-    ``seq_len``: real token count when ``x`` is padded along S (see
-    :func:`forward`) — padded keys are masked inside attention; every other
-    op is row-wise, so garbage rows stay isolated.
+    ``lp`` holds this layer's slice of the stacked encoder params. XLA fuses
+    each LayerNorm into the GEMM that reads it and each bias, GELU and
+    residual add into the GEMM that produces it.
     """
     b, s, d = x.shape
-    if seq_len is None:
-        seq_len = s
     nh, hd = cfg.num_heads, cfg.head_dim
     eps = cfg.layernorm_eps
 
-    # Mega-kernel routing: each half of the block is ONE Pallas kernel with
-    # VMEM-resident weights (vit_tpu/ops/pallas/block.py) — no head
-    # transposes, no LN-stats pass, no HBM round trip for QKV, scores,
-    # context, or the MLP hidden. Identical math to the chain below. The
-    # halves gate INDEPENDENTLY: a geometry whose attention half doesn't
-    # fit (e.g. H/14 fp32's 26 MB weights) still fuses its MLP half, and
-    # vice versa. When the tuner recorded a full-layer win, BOTH halves
-    # fuse into one kernel and the inter-half activation never reaches HBM.
-    mega = (fused and attention == "flash"
-            and ops.resolve_impl(impl) == "pallas")
-    mega_attn = mega and ops.attn_plan(b, s, d, nh, x.dtype.itemsize)
-    mega_mlp = mega and ops.mlp_plan(b, s, d, cfg.mlp_dim, x.dtype.itemsize)
-    if (mega_attn and mega_mlp
-            and ops.layer_plan(b, s, d, cfg.mlp_dim, nh, x.dtype.itemsize)):
-        return ops.layer_block(
-            x, lp["ln1"]["scale"], lp["ln1"]["bias"],
-            lp["qkv"]["kernel"], lp["qkv"]["bias"],
-            lp["out"]["kernel"], lp["out"]["bias"],
-            lp["ln2"]["scale"], lp["ln2"]["bias"],
-            lp["fc1"]["kernel"], lp["fc1"]["bias"],
-            lp["fc2"]["kernel"], lp["fc2"]["bias"],
-            num_heads=nh, scale=hd ** -0.5, seq_len=seq_len, eps=eps,
-            impl=impl)
-    if mega_attn and mega_mlp:
-        x = ops.attn_block(
-            x, lp["ln1"]["scale"], lp["ln1"]["bias"],
-            lp["qkv"]["kernel"], lp["qkv"]["bias"],
-            lp["out"]["kernel"], lp["out"]["bias"],
-            num_heads=nh, scale=hd ** -0.5, seq_len=seq_len, eps=eps,
-            impl=impl)
-        return ops.mlp_block(
-            x, lp["ln2"]["scale"], lp["ln2"]["bias"],
-            lp["fc1"]["kernel"], lp["fc1"]["bias"],
-            lp["fc2"]["kernel"], lp["fc2"]["bias"], eps=eps, impl=impl)
-
-    def lin(inp, p, act=None, ln=None, res=None):
-        if fused:
-            return ops.fused_linear(
-                inp, p["kernel"], p["bias"], act,
-                ln_scale=ln["scale"] if ln else None,
-                ln_bias=ln["bias"] if ln else None,
-                eps=eps, residual=res, impl=impl)
-        h = ops.layernorm(inp, ln["scale"], ln["bias"], eps=eps,
-                          impl=impl) if ln else inp
-        out = ops.matmul(h, p["kernel"], p["bias"], act, impl=impl)
-        return ops.add(out, res, impl=impl) if res is not None else out
-
-    if mega_attn:
-        # One-sided: attention half fused, MLP half composed below.
-        x = ops.attn_block(
-            x, lp["ln1"]["scale"], lp["ln1"]["bias"],
-            lp["qkv"]["kernel"], lp["qkv"]["bias"],
-            lp["out"]["kernel"], lp["out"]["bias"],
-            num_heads=nh, scale=hd ** -0.5, seq_len=seq_len, eps=eps,
-            impl=impl)
-        h = lin(x, lp["fc1"], act="gelu", ln=lp["ln2"])
-        return lin(h, lp["fc2"], res=x)
-
-    qkv = lin(x, lp["qkv"], ln=lp["ln1"])
+    h = ops.layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps=eps)
+    qkv = ops.matmul(h, lp["qkv"]["kernel"], lp["qkv"]["bias"])
     qkv = qkv.reshape(b, s, 3, nh, hd)
-
-    if attention == "flash" and ops.resolve_impl(impl) == "xla":
-        # Measured on v5e: the explicit-transpose (B*H, S, d) batched-matmul
-        # chain beats both the (B,S,H,d)-einsum formulation (XLA picks poor
-        # layouts for it at larger batch: 21.7 vs 13.1 ms at bs=48) and is
-        # the fastest XLA attention at every batch size — route to it.
-        attention = "unfused"
-
-    if attention == "flash":
-        # One transpose for all three operands: (B,S,3,H,d) -> (3,B,H,S,d).
-        # With S pre-padded to a sublane multiple the kernel's rows view is
-        # then a pure reshape — no per-call pad/copy.
-        q, k, v = qkv.transpose(2, 0, 3, 1, 4)
-        ctx = ops.flash_attention(q, k, v, scale=hd ** -0.5,
-                                  seq_len=seq_len, impl=impl)
-        ctx = ctx.transpose(0, 2, 1, 3).reshape(b, s, d)
-    elif attention == "unfused":
-        assert seq_len == s, "unfused attention does not support padded S"
-        # The reference's exact op chain, batched over heads: QK^T/sqrt(d)
-        # via matmul3 -> softmax -> matmul3 (reference vit/vit.py:66-72).
-        q, k, v = (qkv[:, :, i].transpose(0, 2, 1, 3) for i in range(3))
-        qf = q.reshape(b * nh, s, hd)
-        kf = k.reshape(b * nh, s, hd)
-        vf = v.reshape(b * nh, s, hd)
-        scores = ops.matmul3(qf, kf.transpose(0, 2, 1), scale=hd ** -0.5, impl=impl)
-        probs = ops.softmax(scores, impl=impl)
-        ctx = ops.matmul3(probs, vf, impl=impl).reshape(b, nh, s, hd)
-        ctx = ctx.transpose(0, 2, 1, 3).reshape(b, s, d)
-    else:
-        raise ValueError(f"unknown attention mode {attention!r}")
-    # residual 1 (reference vit/vit.py:140), fused into the output projection
-    x = lin(ctx, lp["out"], res=x)
-    if mega_mlp:
-        # One-sided: attention half composed above, MLP half fused.
-        return ops.mlp_block(
-            x, lp["ln2"]["scale"], lp["ln2"]["bias"],
-            lp["fc1"]["kernel"], lp["fc1"]["bias"],
-            lp["fc2"]["kernel"], lp["fc2"]["bias"], eps=eps, impl=impl)
-    # MLP; residual 2 (reference vit/vit.py:147) fused into fc2
-    h = lin(x, lp["fc1"], act="gelu", ln=lp["ln2"])
-    return lin(h, lp["fc2"], res=x)
+    ctx = ops.attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                        scale=hd ** -0.5)
+    # residual 1 (reference vit/vit.py:140)
+    x = ops.matmul(ctx.reshape(b, s, d), lp["out"]["kernel"],
+                   lp["out"]["bias"]) + x
+    # MLP; residual 2 (reference vit/vit.py:147)
+    h = ops.layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps=eps)
+    h = ops.matmul(h, lp["fc1"]["kernel"], lp["fc1"]["bias"], "gelu")
+    return ops.matmul(h, lp["fc2"]["kernel"], lp["fc2"]["bias"]) + x
 
 
-def _padded_seq(cfg: ViTConfig, impl: str | None, attention: str) -> int:
-    """Encoder token count: sublane-aligned (16) on the pallas flash path —
-    197 -> 208 for B/16, 257 -> 272 for H/14, 577 -> 592 for L/16-384 —
-    real length everywhere else (XLA handles ragged shapes itself)."""
-    if attention == "flash" and ops.resolve_impl(impl) == "pallas":
-        return -(-cfg.seq_len // 16) * 16
-    return cfg.seq_len
-
-
-def forward(params: Params, pixels: jax.Array, cfg: ViTConfig, *,
-            impl: str | None = None,
-            attention: str = "flash",
-            fused: bool = True) -> jax.Array:
-    """Full ViT forward (reference vit/vit.py:240-247).
+def forward(params: Params, pixels: jax.Array, cfg: ViTConfig) -> jax.Array:
+    """Full ViT forward (reference vit/vit.py:240-247): embed ->
+    ``lax.scan(encoder_block)`` -> final LN -> pooling/head.
 
     Returns, per ``cfg``:
     - hidden states (B, seq_len, D)      — ``pooling="none"``, no classes
@@ -265,119 +140,25 @@ def forward(params: Params, pixels: jax.Array, cfg: ViTConfig, *,
     - pooled embedding (B, D)            — ``pooling="cls" | "mean"``;
     - logits (B, num_classes)            — ``num_classes > 0``.
     """
-    s, sp = cfg.seq_len, _padded_seq(cfg, impl, attention)
-    b = pixels.shape[0]
-    it = jnp.dtype(cfg.dtype).itemsize
-    if (fused and attention == "flash"
-            and ops.resolve_impl(impl) == "pallas"
-            and cfg.num_prefix_tokens == 1
-            and os.environ.get("VIT_TPU_FOLD_EMBED", "1") != "0"
-            and ops.stack_fused_plan(b, cfg.num_patches, cfg.patch_dim, sp,
-                                     cfg.hidden_dim, cfg.mlp_dim,
-                                     cfg.num_heads, it)):
-        # Smallest-batch latency path: patch embed + the WHOLE encoder +
-        # the final LN as ONE Pallas kernel — the embed matmul runs in
-        # step (0,0) while layer 0's first weight window streams in, and
-        # neither the embedding nor the pre-LN hidden states ever exist
-        # in HBM (round-3 VERDICT item 7: the 0.25 ms front/tail never
-        # overlapped the encoder).
-        e = params["embeddings"]
-        dt = cfg.dtype
-        d = cfg.hidden_dim
-        patches = ops.patchify(pixels.astype(dt), cfg.patch_size,
-                               impl="xla")
-        patches = jax.lax.optimization_barrier(patches)
-        pos = e["position_embeddings"].reshape(s, d).astype(dt)
-        bias = e["patch_embed"]["bias"].astype(dt)
-        base = jnp.concatenate(
-            [e["cls_token"].reshape(1, d).astype(dt) + pos[0:1],
-             pos[1:] + bias,
-             jnp.zeros((sp - s, d), dt)], axis=0)
-        x = ops.encoder_stack_fused(
-            patches, params["encoder"], e["patch_embed"]["kernel"],
-            base, params["ln_final"], num_heads=cfg.num_heads, sp=sp,
-            scale=cfg.head_dim ** -0.5, seq_len=s, eps=cfg.layernorm_eps)
-        return _forward_tail(x, params, cfg, s, sp, impl)
-    x = embed(params, pixels, cfg, impl=impl, sp=sp if sp != s else None)
-    if x.shape[1] != sp:
-        # Run the WHOLE encoder at a sublane-aligned token count: padded
-        # rows are exact zeros here, every encoder op is row-wise (padded
-        # attention keys are masked in-kernel), and the pad is sliced off
-        # after the final LN. This is what lets every matmul see fully
-        # aligned tiles and the flash kernel skip its per-call pad pass.
-        # (The fused embed kernel emits the padded matrix directly.)
-        x = jnp.pad(x, ((0, 0), (0, sp - s), (0, 0)))
+    x = embed(params, pixels, cfg)
 
-    if (fused and attention == "flash"
-            and ops.resolve_impl(impl) == "pallas"
-            and ops.stack_plan(b, sp, cfg.hidden_dim, cfg.mlp_dim,
-                               cfg.num_heads, x.dtype.itemsize)):
-        # Small-batch latency path: the WHOLE encoder is one Pallas kernel
-        # (vit_tpu/ops/pallas/block.py:encoder_stack) — layer l+1's weights
-        # prefetch while layer l computes and the activation never leaves
-        # VMEM, so the forward runs at the weight-bandwidth floor (measured
-        # bs=1 b16: 0.33 ms encoder vs 0.43 ms for the XLA op chain).
-        x = ops.encoder_stack(x, params["encoder"], num_heads=cfg.num_heads,
-                              scale=cfg.head_dim ** -0.5, seq_len=s,
-                              eps=cfg.layernorm_eps, impl=impl)
-    elif (fused and attention == "flash"
-          and ops.resolve_impl(impl) == "pallas"
-          and ops.attn_plan(b, sp, cfg.hidden_dim, cfg.num_heads,
-                            x.dtype.itemsize)
-          and ops.mlp_plan(b, sp, cfg.hidden_dim, cfg.mlp_dim,
-                           x.dtype.itemsize)
-          and not ops.layer_plan(b, sp, cfg.hidden_dim, cfg.mlp_dim,
-                                 cfg.num_heads, x.dtype.itemsize)):
-        # Scan-path throughput regime, stacked-weight form: the per-layer
-        # mega-kernels read layer i's weights DIRECTLY from the stacked
-        # (L, ...) params via scalar-prefetch index maps. Under lax.scan
-        # the sliced-params form pays an HBM->HBM copy of every layer's
-        # weights first (pallas_call is opaque to XLA; measured 16-30
-        # us/layer on L/16 — tools/scan_overhead_probe.py); this form
-        # moves each weight byte HBM->VMEM exactly once. Same plans,
-        # same kernels. (A tuned full-layer win, ops.layer_plan, keeps
-        # its sliced route — its entries were measured in situ.)
-        enc = params["encoder"]
+    def body(x, lp):
+        return encoder_block(x, lp, cfg), None
 
-        def body(h, i):
-            h = ops.attn_block_stacked(
-                h, enc["ln1"]["scale"], enc["ln1"]["bias"],
-                enc["qkv"]["kernel"], enc["qkv"]["bias"],
-                enc["out"]["kernel"], enc["out"]["bias"], i,
-                num_heads=cfg.num_heads, scale=cfg.head_dim ** -0.5,
-                seq_len=s, eps=cfg.layernorm_eps)
-            h = ops.mlp_block_stacked(
-                h, enc["ln2"]["scale"], enc["ln2"]["bias"],
-                enc["fc1"]["kernel"], enc["fc1"]["bias"],
-                enc["fc2"]["kernel"], enc["fc2"]["bias"], i,
-                eps=cfg.layernorm_eps)
-            return h, None
-
-        x, _ = jax.lax.scan(body, x, jnp.arange(cfg.num_layers))
-    else:
-        def body(x, lp):
-            return encoder_block(x, lp, cfg, impl=impl, attention=attention,
-                                 fused=fused, seq_len=s), None
-
-        x, _ = jax.lax.scan(body, x, params["encoder"])
-    x = ops.layernorm(x, params["ln_final"]["scale"], params["ln_final"]["bias"],
-                      eps=cfg.layernorm_eps, impl=impl)
-    return _forward_tail(x, params, cfg, s, sp, impl)
+    x, _ = jax.lax.scan(body, x, params["encoder"])
+    x = ops.layernorm(x, params["ln_final"]["scale"],
+                      params["ln_final"]["bias"], eps=cfg.layernorm_eps)
+    return _forward_tail(x, params, cfg)
 
 
-def _forward_tail(x: jax.Array, params: Params, cfg: ViTConfig, s: int,
-                  sp: int, impl: str | None) -> jax.Array:
-    """Post-final-LN tail shared by the forward paths: slice the sublane
-    pad off, then pool/classify per ``cfg`` (reference vit/vit.py:240-247
-    returns the hidden states; pooling/classes are BASELINE extensions)."""
-    if sp != s:
-        x = x[:, :s]
-
+def _forward_tail(x: jax.Array, params: Params, cfg: ViTConfig) -> jax.Array:
+    """Post-final-LN tail: pool/classify per ``cfg`` (reference
+    vit/vit.py:240-247 returns the hidden states; pooling/classes are
+    BASELINE extensions)."""
     if cfg.num_classes:
         pooled = x[:, 0] if cfg.pooling in ("none", "cls") else jnp.mean(x, axis=1)
         c = params["classifier"]
-        return ops.matmul(pooled[:, None, :], c["kernel"], c["bias"],
-                          impl=impl)[:, 0]
+        return ops.matmul(pooled[:, None, :], c["kernel"], c["bias"])[:, 0]
     if cfg.pooling == "cls":
         return x[:, 0]
     if cfg.pooling == "mean":
@@ -386,8 +167,7 @@ def _forward_tail(x: jax.Array, params: Params, cfg: ViTConfig, s: int,
 
 
 def forward_with_intermediates(params: Params, pixels: jax.Array,
-                               cfg: ViTConfig, *, impl: str | None = None,
-                               attention: str = "flash", fused: bool = True):
+                               cfg: ViTConfig):
     """Forward pass that also returns every layer's hidden states.
 
     The per-layer capture underlying the parity harness — the functional
@@ -398,29 +178,22 @@ def forward_with_intermediates(params: Params, pixels: jax.Array,
     block's output (pre-final-LN) — the same convention as HF
     ``ViTModel(..., output_hidden_states=True)``.
     """
-    x = embed(params, pixels, cfg, impl=impl)
-    s, sp = cfg.seq_len, _padded_seq(cfg, impl, attention)
-    xp = jnp.pad(x, ((0, 0), (0, sp - s), (0, 0))) if sp != s else x
+    x = embed(params, pixels, cfg)
 
     def body(x, lp):
-        y = encoder_block(x, lp, cfg, impl=impl, attention=attention,
-                          fused=fused, seq_len=s)
+        y = encoder_block(x, lp, cfg)
         return y, y
 
-    final, layer_outs = jax.lax.scan(body, xp, params["encoder"])
-    hiddens = [x] + [layer_outs[i][:, :s] for i in range(cfg.num_layers)]
+    final, layer_outs = jax.lax.scan(body, x, params["encoder"])
+    hiddens = [x] + [layer_outs[i] for i in range(cfg.num_layers)]
     final = ops.layernorm(final, params["ln_final"]["scale"],
-                          params["ln_final"]["bias"],
-                          eps=cfg.layernorm_eps, impl=impl)
-    return final[:, :s], hiddens
+                          params["ln_final"]["bias"], eps=cfg.layernorm_eps)
+    return final, hiddens
 
 
-def make_forward(cfg: ViTConfig, *, impl: str | None = None,
-                 attention: str = "flash", fused: bool = True,
-                 jit: bool = True):
-    """Bind config/impl and (optionally) jit — one fixed-shape executable per
+def make_forward(cfg: ViTConfig, *, jit: bool = True):
+    """Bind the config and (optionally) jit — one fixed-shape executable per
     batch size, the reference's planned "fix all tensor sizes + CUDA graphs"
     optimization (reference README.md:28-29) for free."""
-    fn = functools.partial(forward, cfg=cfg, impl=impl, attention=attention,
-                           fused=fused)
+    fn = functools.partial(forward, cfg=cfg)
     return jax.jit(fn) if jit else fn

@@ -89,8 +89,8 @@ def _register_ffi() -> bool:
 def matmul_batch_jax(a, b):
     """The native kernel as an XLA custom call inside a jittable program.
 
-    CPU platform only (on TPU the matmul tier is Pallas —
-    vit_tpu/ops/pallas/matmul.py); raises if the FFI handler is unavailable.
+    CPU platform only (on an accelerator the model's matmuls are XLA's
+    library GEMMs); raises if the FFI handler is unavailable.
     """
     import jax
     import jax.numpy as jnp

@@ -1,368 +1,96 @@
-"""Public op library — the TPU-native equivalent of reference vit/kernels/.
+"""Public op library — the equivalent of reference vit/kernels/.
 
-Export surface mirrors reference vit/kernels/__init__.py:1-7
-(``patching, matmul, softmax, add, layernorm, matmul3, conv2d/patch_embed``)
-plus the fused ``flash_attention`` the reference only planned
+Export surface mirrors the ops the model runs (reference
+vit/kernels/__init__.py:1-7: patching, matmul, softmax, layernorm, conv2d as
+patch embed) plus the fused ``attention`` the reference only planned
 (reference README.md:27 "Add Flash attn").
 
-Every op takes ``impl="xla" | "pallas" | None`` (None = auto, see
-:mod:`vit_tpu.ops.dispatch`) and, for the pallas path, ``interpret`` to force
-interpreter mode on CPU.
+Every op is plain ``jnp``/``lax`` (:mod:`vit_tpu.ops.reference`): under
+``jax.jit`` XLA fuses the elementwise work into the neighbouring library
+GEMMs. The one op with more than one implementation is :func:`attention`,
+whose route is chosen from what the code can observe — the platform and the
+operand dtype — never from a flag (:func:`attention_route`).
 """
 
 from __future__ import annotations
 
+import functools
+
 import jax
+import jax.numpy as jnp
 
 from vit_tpu.ops import reference
-from vit_tpu.ops.dispatch import interpret_mode, resolve_impl
-from vit_tpu.ops.reference import gelu, patchify as _patchify_ref
+from vit_tpu.ops.reference import (gelu, layernorm, matmul, patch_embed,
+                                   patchify, softmax)
 
 __all__ = [
-    "add", "layernorm", "softmax", "matmul", "matmul3", "fused_linear",
-    "patchify", "patch_embed", "flash_attention", "gelu",
-    "mlp_block", "attn_block", "block_plans", "encoder_stack", "stack_plan",
-    "encoder_stack_fused", "stack_fused_plan",
-    "layer_block", "layer_plan", "mlp_block_stacked", "attn_block_stacked",
-    "resolve_impl", "interpret_mode", "reference",
+    "layernorm", "softmax", "matmul", "patchify", "patch_embed", "gelu",
+    "attention", "attention_route", "reference",
 ]
 
-
-def add(x, y, *, impl=None, interpret=None):
-    """Elementwise add (reference vit/kernels/add.py equivalent)."""
-    if resolve_impl(impl) == "xla":
-        return reference.add(x, y)
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.add(x, y, interpret_mode(interpret))
+#: Operand dtypes cuDNN's fused attention takes (half-precision only).
+_CUDNN_DTYPES = (jnp.dtype(jnp.bfloat16), jnp.dtype(jnp.float16))
 
 
-def layernorm(x, scale, bias, *, eps=1e-12, impl=None, interpret=None):
-    """Row layernorm (reference vit/kernels/layernorm.py equivalent)."""
-    if resolve_impl(impl) == "xla":
-        return reference.layernorm(x, scale, bias, eps=eps)
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.layernorm(x, scale, bias, eps, interpret_mode(interpret))
+def attention_route(dtype, platform: str | None = None) -> str:
+    """The attention implementation for ``dtype`` operands on ``platform``
+    (default: JAX's default backend).
 
-
-def softmax(x, *, impl=None, interpret=None):
-    """Row softmax over the last axis (reference vit/kernels/softmax.py)."""
-    if resolve_impl(impl) == "xla":
-        return reference.softmax(x)
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.softmax(x, interpret_mode(interpret))
-
-
-def matmul(x, w, bias=None, activation=None, *, impl=None, interpret=None):
-    """(B,M,K)@(K,N) + fused bias + fused GELU (reference vit/kernels/matmul.py).
-
-    The pallas path goes through the custom-VJP wrapper, so ``jax.grad``
-    works on it transparently (vit_tpu/ops/pallas/vjp.py).
+    - ``"cudnn"``: bf16/fp16 on a GPU — cuDNN's fused (flash) attention
+      through XLA, which never writes the (S, S) scores to device memory
+      (the fastest of three routes timed inside the bf16 forward on an
+      H100, PERF.md);
+    - ``"xla"``: everything else — the plain scores -> softmax -> context
+      chain (:func:`vit_tpu.ops.reference.attention`), which keeps fp32 at
+      ``Precision.HIGHEST`` and is the oracle for the fused route.
     """
-    if resolve_impl(impl) == "xla":
-        return reference.matmul(x, w, bias, activation)
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.linear(x, w, bias, activation, interpret_mode(interpret))
+    platform = platform or jax.default_backend()
+    if platform == "gpu" and jnp.dtype(dtype) in _CUDNN_DTYPES:
+        return "cudnn"
+    return "xla"
 
 
-def fused_linear(x, w, bias=None, activation=None, *, ln_scale=None,
-                 ln_bias=None, eps=1e-12, residual=None, impl=None,
-                 interpret=None):
-    """``act(LN(x) @ w + bias) + residual`` — the transformer-block fusion.
-
-    Pallas path: one matmul pass with LN prologue (precomputed row stats)
-    and residual epilogue (vit_tpu/ops/pallas/matmul.py:fused_linear).
-    XLA path: the same math as the unfused op chain — XLA's fusion does the
-    equivalent work at the HLO level.
-    """
-    if resolve_impl(impl) == "xla":
-        h = (reference.layernorm(x, ln_scale, ln_bias, eps=eps)
-             if ln_scale is not None else x)
-        out = reference.matmul(h, w, bias, activation)
-        return reference.add(out, residual) if residual is not None else out
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.fused_linear(x, w, bias, ln_scale, ln_bias, residual,
-                           activation, eps, interpret_mode(interpret))
+def _plain_attention(q, k, v, scale):
+    bhsd = (0, 2, 1, 3)
+    out = reference.attention(q.transpose(bhsd), k.transpose(bhsd),
+                              v.transpose(bhsd), scale=scale)
+    return out.transpose(bhsd)
 
 
-def matmul3(x, y, *, scale=None, impl=None, interpret=None):
-    """(B,M,K)@(B,K,N) + fused scaling (reference vit/kernels/matmul3.py)."""
-    if resolve_impl(impl) == "xla":
-        return reference.matmul3(x, y, scale=scale)
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.matmul3(x, y, scale, interpret_mode(interpret))
+def _with_plain_backward(fused):
+    """``fused(q, k, v, scale)`` as the forward, with the gradient of the
+    plain chain, recomputed from q, k and v in the backward pass."""
+    @functools.partial(jax.custom_vjp, nondiff_argnums=(3,))
+    def fn(q, k, v, scale):
+        return fused(q, k, v, scale)
+
+    def fwd(q, k, v, scale):
+        return fused(q, k, v, scale), (q, k, v)
+
+    def bwd(scale, res, g):
+        _, vjp = jax.vjp(functools.partial(_plain_attention, scale=scale),
+                         *res)
+        return vjp(g)
+
+    fn.defvjp(fwd, bwd)
+    return fn
 
 
-def patchify(x, patch_size, *, impl=None, interpret=None):
-    """NCHW image -> flattened patch rows (reference vit/kernels/patching.py)."""
-    if resolve_impl(impl) == "xla":
-        return _patchify_ref(x, patch_size)
-    from vit_tpu.ops.pallas import patching as _k
-    return _k.patchify(x, patch_size, interpret=interpret_mode(interpret))
+# cuDNN's fused backward refuses odd sequence lengths (ViT's 197, 257 and
+# 577 tokens) when training, so the fused route keeps cuDNN's forward and
+# takes its gradient from the plain chain.
+_cudnn_attention = _with_plain_backward(
+    lambda q, k, v, scale: jax.nn.dot_product_attention(
+        q, k, v, scale=scale, implementation="cudnn"))
 
 
-def patch_embed(x, w, bias, patch_size, *, impl=None, interpret=None):
-    """Patch-embedding conv as unfold+matmul (reference vit/kernels/conv2d.py
-    equivalent, via the layout its roadmap targets — SURVEY.md §7).
-
-    On the compiled pallas tier this op dispatches to the XLA formulation
-    by default: the unfold is a pure layout transform XLA fuses into the
-    projection's operand stream, while a ``pallas_call`` is an opaque
-    boundary the unfold must materialize through — measured on v5e bf16
-    the XLA form wins at every batch (bs=32: 0.122 vs 0.142 ms even with
-    the layout barrier, 0.373 without). A tuned entry (op ``patchembed``,
-    dims (m,), value {"impl": "pallas"}) re-routes per shape if a future
-    sweep measures otherwise; interpret mode always runs the kernel."""
-    if resolve_impl(impl) == "xla":
-        return reference.patch_embed(x, w, bias, patch_size)
-    interp = interpret_mode(interpret)
-    if not interp:
-        from vit_tpu.ops.pallas import tuning
-        m = x.shape[0] * (x.shape[2] // patch_size) * (x.shape[3] // patch_size)
-        hit = tuning.lookup("patchembed", x.dtype, (m,))
-        if hit is None or hit.get("impl") != "pallas":
-            return reference.patch_embed(x, w, bias, patch_size)
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.patch_embed(x, w, bias, patch_size, interp)
-
-
-def embed_fused(patches, w, bias, cls_row, pos, sp, *, interpret=None):
-    """Patch projection + CLS + pos-add + pad-to-sp in ONE Pallas pass
-    (vit_tpu/ops/pallas/patch_embed.py:embed_fused). Pallas-tier only —
-    callers gate on :func:`embed_fused_ok`; the XLA tier keeps the
-    composed chain (reference vit/vit.py:188-200 semantics)."""
-    from vit_tpu.ops.pallas import patch_embed as _k
-    return _k.embed_fused(patches, w, bias, cls_row, pos, sp,
-                          interpret=interpret_mode(interpret))
-
-
-def embed_fused_ok(b: int, n: int, k: int, d: int, sp: int,
-                   itemsize: int) -> bool:
-    """VMEM-feasibility gate for :func:`embed_fused` (one image's patch
-    rows + the whole projection weight + the assembled (sp, d) block must
-    fit alongside double buffers)."""
-    if d % 128 or sp % 8 or sp < n + 1:
-        return False
-    import os
-    env = os.environ.get("VIT_TPU_EMBED_FUSED")
-    if env == "0":
-        return False
-    if b > 4 and env != "1":
-        # Measured on v5e bf16 B/16: fused wins the latency regime
-        # (bs=1: 0.330 vs 0.350 ms e2e) and is noise-level at bs>=8
-        # (within ±0.1% at 8/32/64) — keep the long-proven composed
-        # chain for throughput batches, take the win where it exists.
-        return False
-    kp = -(-k // 128) * 128
-    need = (kp * d * itemsize + 2 * n * kp * itemsize + n * d * 4
-            + 2 * sp * d * itemsize + 2 * sp * d * itemsize)
-    return need <= 22 * 2 ** 20
-
-
-def flash_attention(q, k, v, *, scale=None, seq_len=None, impl=None,
-                    interpret=None):
-    """Fused multi-head attention, (B,H,S,d) layout.
-
-    Pallas path is a blockwise online-softmax (flash) kernel; XLA path is the
-    unfused scores->softmax->context chain equivalent to the reference's
-    matmul3/softmax/matmul3 sequence (reference vit/vit.py:66-72).
-    ``seq_len`` marks the real token count for pre-padded operands.
-    """
-    if resolve_impl(impl) == "xla":
-        return reference.attention(q, k, v, scale=scale, seq_len=seq_len)
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.attention(q, k, v, scale, seq_len, interpret_mode(interpret))
-
-
-def mlp_plan(batch: int, seq_pad: int, hidden: int, mlp: int,
-             itemsize: int):
-    """Whether the MLP half-block mega-kernel has a VMEM-feasible plan."""
-    from vit_tpu.ops.pallas import block as _b
-    return _b.mlp_block_plan(batch * seq_pad, hidden, mlp, itemsize) is not None
-
-
-def attn_plan(batch: int, seq_pad: int, hidden: int, num_heads: int,
-              itemsize: int):
-    """Whether the attention half-block mega-kernel has a feasible plan."""
-    from vit_tpu.ops.pallas import block as _b
-    return _b.attn_block_plan(batch, seq_pad, hidden, num_heads,
-                              itemsize) is not None
-
-
-def block_plans(batch: int, seq_pad: int, hidden: int, mlp: int,
-                num_heads: int, itemsize: int):
-    """Whether BOTH transformer-block mega-kernels have a VMEM-feasible plan
-    for this geometry (vit_tpu/ops/pallas/block.py). The model routes each
-    half independently (vit_tpu/models/vit.py:encoder_block); this combined
-    check remains for the tests/serving plan probes."""
-    return (mlp_plan(batch, seq_pad, hidden, mlp, itemsize)
-            and attn_plan(batch, seq_pad, hidden, num_heads, itemsize))
-
-
-def layer_plan(batch: int, seq_pad: int, hidden: int, mlp: int,
-               num_heads: int, itemsize: int):
-    """Plan for the FULL-layer mega-kernel (attn + MLP in one pass), or
-    None. Opt-in: only returns a plan when the tuner recorded a per-shape
-    win or ``VIT_TPU_LAYER_PLAN`` forces one
-    (vit_tpu/ops/pallas/block.py:layer_block_plan)."""
-    from vit_tpu.ops.pallas import block as _b
-    return _b.layer_block_plan(batch, seq_pad, hidden, mlp, num_heads,
-                               itemsize)
-
-
-def layer_block(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
-                ln2_scale, ln2_bias, w1, b1, w2, b2, *, num_heads,
-                scale=None, seq_len=None, eps=1e-12, impl=None,
-                interpret=None):
-    """One FULL encoder layer in one Pallas pass: the attn_block and
-    mlp_block fusions composed without the inter-half HBM round trip
-    (vit_tpu/ops/pallas/block.py:layer_block). XLA path: the two composed
-    halves."""
-    if resolve_impl(impl) == "xla":
-        y = attn_block(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
-                       num_heads=num_heads, scale=scale, seq_len=seq_len,
-                       eps=eps, impl="xla")
-        return mlp_block(y, ln2_scale, ln2_bias, w1, b1, w2, b2, eps=eps,
-                         impl="xla")
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.layer_block(x, ln1_scale, ln1_bias, wqkv, bqkv, wout, bout,
-                          ln2_scale, ln2_bias, w1, b1, w2, b2, num_heads,
-                          scale, seq_len, eps, interpret_mode(interpret))
-
-
-def mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps=1e-12,
-              impl=None, interpret=None):
-    """``x + fc2(gelu(fc1(LN(x))))`` — the MLP half of an encoder block.
-
-    Pallas path: one mega-kernel with VMEM-resident weights; the
-    (M, mlp_dim) hidden never reaches HBM (vit_tpu/ops/pallas/block.py).
-    XLA path: the composed op chain (XLA cannot fuse matmul into matmul,
-    so the hidden materializes — the structural gap the kernel exploits).
-    """
-    if resolve_impl(impl) == "xla":
-        h = reference.layernorm(x, ln_scale, ln_bias, eps=eps)
-        h = reference.matmul(h, w1, b1, "gelu")
-        return reference.matmul(h, w2, b2) + x
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, eps,
-                        interpret_mode(interpret))
-
-
-def mlp_block_stacked(x, ln_scale, ln_bias, w1, b1, w2, b2, idx, *,
-                      eps=1e-12, interpret=None):
-    """Pallas-only: :func:`mlp_block` reading layer ``idx``'s weights
-    straight from the scan-stacked (L, ...) arrays (scalar-prefetch index
-    maps) — under ``lax.scan`` the per-layer slice HBM copies never happen
-    (vit_tpu/ops/pallas/block.py:mlp_block_stacked). Differentiable. The
-    XLA tier has no counterpart: its scan slices fuse into the consuming
-    HLO matmuls for free."""
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.mlp_block_stacked(x, ln_scale, ln_bias, w1, b1, w2, b2, idx,
-                                eps, interpret_mode(interpret))
-
-
-def attn_block_stacked(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, idx, *,
-                       num_heads, scale=None, seq_len=None, eps=1e-12,
-                       interpret=None):
-    """Pallas-only: :func:`attn_block` reading layer ``idx``'s weights
-    straight from the scan-stacked (L, ...) arrays — see
-    :func:`mlp_block_stacked`. Differentiable."""
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.attn_block_stacked(x, ln_scale, ln_bias, wqkv, bqkv, wout,
-                                 bout, idx, num_heads, scale, seq_len, eps,
-                                 interpret_mode(interpret))
-
-
-def stack_plan(batch: int, seq_pad: int, hidden: int, mlp: int,
-               num_heads: int, itemsize: int):
-    """Whether the whole-encoder mega-kernel has a VMEM-feasible plan
-    (vit_tpu/ops/pallas/block.py:encoder_stack_plan) — the small-batch
-    latency regime where activations stay resident across all layers."""
-    from vit_tpu.ops.pallas import block as _b
-    return _b.encoder_stack_plan(batch, seq_pad, hidden, mlp, num_heads,
-                                 itemsize) is not None
-
-
-def stack_fused_plan(batch: int, n_tok: int, patch_dim: int, seq_pad: int,
-                     hidden: int, mlp: int, num_heads: int, itemsize: int):
-    """Whether the embed-folded whole-encoder kernel is feasible: the
-    :func:`stack_plan` VMEM model charged with the resident patches/embed
-    weight/base rows (vit_tpu/ops/pallas/block.py:encoder_stack_fused)."""
-    from vit_tpu.ops.pallas import block as _b
-    extra = _b.stack_fused_extra_bytes(batch, n_tok, patch_dim, hidden,
-                                       seq_pad, itemsize)
-    return _b.encoder_stack_plan(batch, seq_pad, hidden, mlp, num_heads,
-                                 itemsize, extra=extra) is not None
-
-
-def encoder_stack_fused(patches, enc, wemb, base, lnf, *, num_heads, sp,
-                        scale=None, seq_len=None, eps=1e-12,
-                        interpret=None):
-    """Patch embed + whole encoder + final LN as ONE Pallas kernel —
-    the bs<=2 latency path with the front/tail kernels folded in
-    (vit_tpu/ops/pallas/block.py:encoder_stack_fused). Pallas-only:
-    callers gate on :func:`stack_fused_plan`."""
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.encoder_stack_fused(patches, enc, wemb, base, lnf, num_heads,
-                                  sp, scale, seq_len, eps,
-                                  interpret_mode(interpret))
-
-
-def encoder_stack(x, enc, *, num_heads, scale=None, seq_len=None,
-                  eps=1e-12, impl=None, interpret=None):
-    """Run the full stacked pre-LN encoder (``enc`` = scan-stacked params
-    with leaves ``ln1/qkv/out/ln2/fc1/fc2``).
-
-    Pallas path: ONE kernel for all layers — weights stream (and prefetch
-    across layer boundaries) while the activation never leaves VMEM
-    (vit_tpu/ops/pallas/block.py:encoder_stack). XLA path: lax.scan over
-    the composed per-layer op chain.
-    """
-    if resolve_impl(impl) == "xla":
-        def body(h, lp):
-            hn = reference.layernorm(h, lp["ln1"]["scale"], lp["ln1"]["bias"],
-                                     eps=eps)
-            b, s, d = h.shape
-            hd = d // num_heads
-            qkv = reference.matmul(hn, lp["qkv"]["kernel"],
-                                   lp["qkv"]["bias"]).reshape(
-                b, s, 3, num_heads, hd)
-            q, k, v = qkv.transpose(2, 0, 3, 1, 4)
-            ctx = reference.attention(q, k, v, scale=scale, seq_len=seq_len)
-            ctx = ctx.transpose(0, 2, 1, 3).reshape(b, s, d)
-            h = reference.matmul(ctx, lp["out"]["kernel"],
-                                 lp["out"]["bias"]) + h
-            z = reference.layernorm(h, lp["ln2"]["scale"], lp["ln2"]["bias"],
-                                    eps=eps)
-            z = reference.matmul(z, lp["fc1"]["kernel"], lp["fc1"]["bias"],
-                                 "gelu")
-            return reference.matmul(z, lp["fc2"]["kernel"],
-                                    lp["fc2"]["bias"]) + h, None
-        return jax.lax.scan(body, x, enc)[0]
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.encoder_stack(x, enc, num_heads, scale, seq_len, eps,
-                            interpret_mode(interpret))
-
-
-def attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, *,
-               num_heads, scale=None, seq_len=None, eps=1e-12,
-               impl=None, interpret=None):
-    """``x + proj(MHA(LN(x)))`` — the attention half of an encoder block.
-
-    Pallas path: one mega-kernel in the lane-packed (S, D) layout — no
-    head transposes, QKV/scores/context all VMEM-only
-    (vit_tpu/ops/pallas/block.py). XLA path: the composed chain through
-    :func:`flash_attention`'s XLA branch.
-    """
-    b, s, d = x.shape
-    hd = d // num_heads
-    if resolve_impl(impl) == "xla":
-        xn = reference.layernorm(x, ln_scale, ln_bias, eps=eps)
-        qkv = reference.matmul(xn, wqkv, bqkv).reshape(b, s, 3, num_heads, hd)
-        q, k, v = qkv.transpose(2, 0, 3, 1, 4)
-        ctx = reference.attention(q, k, v, scale=scale, seq_len=seq_len)
-        ctx = ctx.transpose(0, 2, 1, 3).reshape(b, s, d)
-        return reference.matmul(ctx, wout, bout) + x
-    from vit_tpu.ops.pallas import vjp as _k
-    return _k.attn_block(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
-                         num_heads, scale, seq_len, eps,
-                         interpret_mode(interpret))
+def attention(q: jax.Array, k: jax.Array, v: jax.Array, *,
+              scale: float | None = None) -> jax.Array:
+    """Multi-head scaled-dot-product attention in (B, S, H, d) layout — the
+    layout the fused QKV projection produces, so no head transposes are
+    needed before the fused route. Returns (B, S, H, d)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if attention_route(q.dtype) == "cudnn":
+        return _cudnn_attention(q, k, v, scale)
+    return _plain_attention(q, k, v, scale)

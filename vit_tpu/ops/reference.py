@@ -1,10 +1,10 @@
-"""Pure-jnp reference implementations of every op in the kernel library.
+"""Pure-jnp implementations of every op the model runs.
 
-These are the test oracle (the role ``torch`` plays for the reference's
-per-kernel ``__main__`` allclose tests, e.g. reference vit/kernels/matmul.py:159-192)
-AND the ``impl='xla'`` fast path of the model: under ``jax.jit`` XLA fuses these
-into MXU-tiled programs, so they are a production path in their own right,
-not just fixtures.
+These are the model's main path — under ``jax.jit`` XLA fuses the
+elementwise work into the neighbouring cuBLAS/cuDNN GEMMs — AND the test
+oracle for any other route (the role ``torch`` plays for the reference's
+per-kernel ``__main__`` allclose tests, e.g. reference
+vit/kernels/matmul.py:159-192).
 
 Semantics notes (kept bit-compatible with the reference / HF):
 
@@ -25,10 +25,10 @@ import jax.numpy as jnp
 
 
 def _precision(dtype):
-    """fp32 inputs use HIGHEST (true fp32 via bf16x6 passes on the MXU) so
-    TPU results keep the reference's fp32 accumulation semantics
-    (reference vit/kernels/matmul.py:92); low-precision inputs use the
-    hardware-native default."""
+    """fp32 inputs use HIGHEST — true fp32 products, no TF32 on the tensor
+    cores — so results keep the reference's fp32 semantics (reference
+    vit/kernels/matmul.py:92); low-precision inputs use the hardware-native
+    default (bf16 products, fp32 accumulation)."""
     return (jax.lax.Precision.HIGHEST
             if jnp.dtype(dtype) == jnp.float32 else None)
 
@@ -37,20 +37,10 @@ def gelu(x: jax.Array) -> jax.Array:
     """Exact erf-form GELU: 0.5 * x * (1 + erf(x / sqrt(2))).
 
     Mirrors reference vit/kernels/activations.py:8-20. ``jax.nn.gelu`` with
-    ``approximate=False`` is the same formula; we spell it out so the Pallas
-    kernels and this oracle share one definition.
+    ``approximate=False`` is the same formula; we spell it out so every
+    caller shares one definition.
     """
     return 0.5 * x * (1.0 + jax.lax.erf(x * (2.0 ** -0.5)))
-
-
-def add(x: jax.Array, y: jax.Array) -> jax.Array:
-    """Elementwise add of two identically-shaped arrays.
-
-    Mirrors reference vit/kernels/add.py:31-104 (which asserts identical
-    shapes — no broadcasting).
-    """
-    assert x.shape == y.shape, (x.shape, y.shape)
-    return x + y
 
 
 def layernorm(
@@ -109,27 +99,6 @@ def matmul(
     return out.astype(x.dtype)
 
 
-def matmul3(
-    x: jax.Array,
-    y: jax.Array,
-    *,
-    scale: float | None = None,
-) -> jax.Array:
-    """Both-operands-batched matmul ``(B, M, K) @ (B, K, N)`` + fused scaling.
-
-    Used for attention scores (QK^T / sqrt(d)) and context (attn @ V).
-    Mirrors reference vit/kernels/matmul3.py:40-156 (fused ``scale_factor``
-    at matmul3.py:105-106).
-    """
-    assert x.ndim == y.ndim == 3 and x.shape[0] == y.shape[0], (x.shape, y.shape)
-    assert x.shape[-1] == y.shape[-2], (x.shape, y.shape)
-    out = jnp.matmul(x, y, preferred_element_type=jnp.float32,
-                      precision=_precision(x.dtype))
-    if scale is not None:
-        out = out * scale
-    return out.astype(x.dtype)
-
-
 def patchify(x: jax.Array, patch_size: int) -> jax.Array:
     """Rearrange an NCHW image batch into flattened patch rows.
 
@@ -156,7 +125,7 @@ def patch_embed(
     Equivalent to the reference's non-overlapping conv2d patch embed
     (reference vit/kernels/conv2d.py:19-167, stride == kernel) followed by HF's
     ``flatten(2).transpose(1, 2)`` (reference vit/vit.py:192) — but expressed
-    as ``patchify`` + one big MXU matmul, the layout the reference's own
+    as ``patchify`` + one big GEMM, the layout the reference's own
     roadmap targets (reference README.md:26 "Faster Conv1D"; its scalar-loop
     conv2d was its slowest kernel, SURVEY.md §6).
 
@@ -173,50 +142,22 @@ def attention(
     v: jax.Array,
     *,
     scale: float | None = None,
-    seq_len: int | None = None,
 ) -> jax.Array:
     """Multi-head scaled-dot-product attention, (B, H, S, d) layout.
 
-    The oracle for the fused flash-attention kernel. Equivalent to the
-    reference's per-head matmul3 -> softmax -> matmul3 chain
-    (reference vit/vit.py:66-72) but batched over heads. No attention mask /
-    dropout (the reference has neither; dropout TODO at reference
-    vit/vit.py:43) — ``seq_len`` only masks *padding* keys when the operands
-    arrive zero-padded along S (see the flash kernel's contract).
+    The plain route of :func:`vit_tpu.ops.attention` and the oracle for its
+    fused route. Equivalent to the reference's per-head matmul3 -> softmax
+    -> matmul3 chain (reference vit/vit.py:66-72) but batched over heads.
+    No attention mask / dropout (the reference has neither; dropout TODO at
+    reference vit/vit.py:43).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scores = jnp.einsum("bhqd,bhkd->bhqk", q, k,
                         preferred_element_type=jnp.float32,
                         precision=_precision(q.dtype)) * scale
-    if seq_len is not None and seq_len != k.shape[2]:
-        kcol = jnp.arange(k.shape[2])
-        scores = jnp.where(kcol[None, None, None, :] < seq_len, scores,
-                           jnp.float32(-jnp.inf))
     probs = softmax(scores)
     out = jnp.einsum("bhqk,bhkd->bhqd", probs.astype(q.dtype), v,
-                     preferred_element_type=jnp.float32,
-                     precision=_precision(q.dtype))
-    return out.astype(q.dtype)
-
-
-def attention_bshd(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    *,
-    scale: float | None = None,
-) -> jax.Array:
-    """Attention in (B, S, H, d) layout — heads stay where the fused QKV
-    matmul produced them, so the XLA path needs no explicit head transposes
-    (the einsums carry the layout)."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    scores = jnp.einsum("bqhd,bkhd->bhqk", q, k,
-                        preferred_element_type=jnp.float32,
-                        precision=_precision(q.dtype)) * scale
-    probs = softmax(scores)
-    out = jnp.einsum("bhqk,bkhd->bqhd", probs.astype(q.dtype), v,
                      preferred_element_type=jnp.float32,
                      precision=_precision(q.dtype))
     return out.astype(q.dtype)

@@ -1,21 +1,12 @@
 """Multi-device execution (mesh + shardings).
 
 The reference has no distributed layer at all (SURVEY.md §2.6: single GPU,
-hardcoded 'cuda:0'). This package is the TPU-idiomatic expression of "scale
-throughput": a device mesh with XLA GSPMD shardings — batch data-parallelism
-over the 'data' axis and Megatron-style tensor-parallelism over the 'model'
-axis — with all collectives inserted by XLA and riding ICI. The Pallas
-kernel tier, opaque to GSPMD, gets the same Megatron decomposition written
-out explicitly under shard_map (vit_tpu/parallel/tp_pallas.py).
+hardcoded 'cuda:0'). This package expresses "scale throughput" as a device
+mesh with XLA GSPMD shardings — batch data-parallelism over the 'data' axis
+and Megatron-style tensor-parallelism over the 'model' axis — with all
+collectives inserted by XLA (NCCL over NVLink on a multi-GPU host).
 """
 
-from vit_tpu.parallel.mesh import (
-    batch_sharding,
-    make_mesh,
-    param_shardings,
-    replicate,
-)
-from vit_tpu.parallel.tp_pallas import make_tp_forward, prepare_tp_params
+from vit_tpu.parallel.mesh import batch_sharding, make_mesh, param_shardings
 
-__all__ = ["make_mesh", "param_shardings", "batch_sharding", "replicate",
-           "make_tp_forward", "prepare_tp_params"]
+__all__ = ["make_mesh", "param_shardings", "batch_sharding"]

@@ -18,8 +18,7 @@ collectives):
   * layernorms, embeddings, cls/pos: replicated.
 
 - Activations: batch axis sharded over 'data' everywhere; the per-device
-  program is identical to the single-chip one, so the Pallas kernels work
-  unchanged under shard_map-free GSPMD.
+  program is the single-device one on its shard.
 """
 
 from __future__ import annotations
@@ -41,10 +40,6 @@ def make_mesh(data: int = 1, model: int = 1,
         raise ValueError(f"need {n} devices, have {len(devices)}")
     arr = np.asarray(devices[:n]).reshape(data, model)
     return Mesh(arr, axis_names=("data", "model"))
-
-
-def replicate(mesh: Mesh) -> NamedSharding:
-    return NamedSharding(mesh, P())
 
 
 def param_shardings(params: Params, mesh: Mesh, cfg: ViTConfig) -> Params:

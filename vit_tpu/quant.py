@@ -3,9 +3,10 @@
 Weight-and-activation symmetric int8 for every encoder matmul (QKV,
 attention output projection, fc1, fc2): weights are quantized offline
 per output channel, activations dynamically per row at trace time, and
-the dot runs int8 x int8 -> int32 — on a v5e MXU that is ~2x the bf16
-rate (394 vs 197 peak TOPS) and the int8 weight stream is half the HBM
-traffic that bounds the small-batch latency regime (docs/PERF.md §3).
+the dot runs int8 x int8 -> int32. The int8 weight stream is half the bf16
+weight traffic that bounds the small-batch latency regime; whether XLA
+lowers the s8 x s8 -> s32 dot to the GPU's int8 tensor cores is a question
+for the card (PERF.md).
 
 Everything accuracy-critical or cheap stays in float: LayerNorm, softmax,
 GELU, residuals, the attention score/context dots (their operands are
@@ -13,11 +14,10 @@ activations x activations — per-row scaling cannot be folded into a
 weight), patch embedding, and the classifier head.
 
 The reference has no quantization story (fp32-only, reference
-vit/vit.py:22-23); this module is the TPU-idiomatic extension of its
-"make inference fast" goal. The op tier here is XLA (jnp) — XLA lowers
-``lax.dot_general`` with int8 operands and ``preferred_element_type=int32``
-straight onto the int8 MXU path; a fused Pallas int8 mega-kernel can slot
-in behind the same pytree later.
+vit/vit.py:22-23); this module extends its "make inference fast" goal. The
+op tier is XLA (jnp): ``lax.dot_general`` with int8 operands and
+``preferred_element_type=int32``; a fused low-precision kernel can slot in
+behind the same pytree later.
 
 Accuracy (synthetic-golden ViT-B/16 weights, tests/test_quant.py): final
 hidden states match the float forward to ~2% relative error (corr 0.9998).
@@ -31,6 +31,7 @@ from typing import Any
 import jax
 import jax.numpy as jnp
 
+from vit_tpu import ops
 from vit_tpu.config import ViTConfig
 from vit_tpu.models.vit import Params, embed
 from vit_tpu.ops import reference as ref
@@ -75,9 +76,8 @@ def int8_matmul(x: jax.Array, wq: QParams, bias: jax.Array | None = None,
     """``(..., M, K) @ int8 (K, N)`` with dynamic per-row activation quant.
 
     ``y = (round(x / ax) . q) * ax * scale + bias`` where ``ax`` is each
-    row's max-abs / 127. The dot itself is int8 x int8 -> int32 (one MXU
-    pass); the rescale is a rank-1 outer product fused into the epilogue
-    by XLA.
+    row's max-abs / 127. The dot itself is int8 x int8 -> int32; the
+    rescale is a rank-1 outer product fused into the epilogue by XLA.
     """
     x32 = jnp.asarray(x, jnp.float32)
     ax = jnp.max(jnp.abs(x32), axis=-1, keepdims=True) / _QMAX
@@ -107,11 +107,9 @@ def smooth_params(params: Params, cfg: ViTConfig, pixels: jax.Array,
         LN_scale /= c,  LN_bias /= c,  W[j, :] *= c_j
 
     — exactly identity for the float model (asserted by tests), but the
-    activation rows the XLA tier quantizes dynamically become flatter, so
+    activation rows the int8 tier quantizes dynamically become flatter, so
     per-row int8 loses less to channel outliers. The out/fc2 projections
     have nonlinear producers (attention, GELU) and are left untouched.
-    Weight-only kernels (mlp_block_q / encoder_stack_q) are mathematically
-    indifferent to the fold; only their weight scales shift.
 
     Measured: ~1% error reduction on well-conditioned synthetic weights
     (tests); the technique's real payoff is pretrained checkpoints with
@@ -120,8 +118,7 @@ def smooth_params(params: Params, cfg: ViTConfig, pixels: jax.Array,
     """
     from vit_tpu.models.vit import forward_with_intermediates
 
-    _, hiddens = forward_with_intermediates(params, pixels, cfg, impl="xla",
-                                            attention="unfused")
+    _, hiddens = forward_with_intermediates(params, pixels, cfg)
     enc = {k: dict(v) for k, v in params["encoder"].items()}
 
     def fold(ln_name, w_name, act_amax):
@@ -151,12 +148,9 @@ def smooth_params(params: Params, cfg: ViTConfig, pixels: jax.Array,
         b_, s_, d_ = x.shape
         nh, hd = cfg.num_heads, cfg.head_dim
         qkv = ref.matmul(xn, lp["qkv"]["kernel"], lp["qkv"]["bias"])
-        q, k, v = qkv.reshape(b_, s_, 3, nh, hd).transpose(2, 0, 3, 1, 4)
-        a = ref.softmax((q.astype(jnp.float32)
-                         @ k.astype(jnp.float32).transpose(0, 1, 3, 2))
-                        * hd ** -0.5)
-        ctx = ((a @ v.astype(jnp.float32)).astype(x.dtype)
-               .transpose(0, 2, 1, 3).reshape(b_, s_, d_))
+        qkv = qkv.reshape(b_, s_, 3, nh, hd)
+        ctx = ops.attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                            scale=hd ** -0.5).reshape(b_, s_, d_)
         xa = x + ref.matmul(ctx, lp["out"]["kernel"], lp["out"]["bias"])
         xn2 = ref.layernorm(xa, lp["ln2"]["scale"], lp["ln2"]["bias"],
                             eps=eps)
@@ -170,73 +164,20 @@ def smooth_params(params: Params, cfg: ViTConfig, pixels: jax.Array,
     return out
 
 
-def _block_quant(x: jax.Array, lp: Params, cfg: ViTConfig,
-                 impl: str | None = None,
-                 seq_len: int | None = None) -> jax.Array:
-    """One pre-LN block with int8 projections (float attention core).
-
-    ``seq_len``: real token count when ``x`` is padded along S — set by
-    the pallas route, which pads the whole encoder once (like the float
-    :func:`vit_tpu.models.vit.forward`) so the attention mega-kernel gets
-    sublane-aligned tiles; padded keys are masked in-kernel.
-    """
+def _block_quant(x: jax.Array, lp: Params, cfg: ViTConfig) -> jax.Array:
+    """One pre-LN block with int8 projections (float attention core on the
+    same route as the float model, :func:`vit_tpu.ops.attention`)."""
     b, s, d = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     eps = cfg.layernorm_eps
 
-    from vit_tpu.ops import resolve_impl
-    attn_done = False
-    if resolve_impl(impl) == "pallas":
-        from vit_tpu.ops.dispatch import interpret_mode
-        from vit_tpu.ops.pallas.block import attn_block_q, attn_block_q_plan
-        if attn_block_q_plan(b, s, d, nh, x.dtype.itemsize) is not None:
-            kq, ko = lp["qkv"]["kernel"], lp["out"]["kernel"]
-            x = attn_block_q(
-                x, lp["ln1"]["scale"], lp["ln1"]["bias"],
-                kq["q"], kq["scale"], lp["qkv"]["bias"],
-                ko["q"], ko["scale"], lp["out"]["bias"],
-                num_heads=nh, seq_len=seq_len, eps=eps,
-                interpret=interpret_mode(None))
-            attn_done = True
-    if not attn_done:
-        xn = ref.layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps=eps)
-        qkv = int8_matmul(xn, lp["qkv"]["kernel"], lp["qkv"]["bias"])
-        q, k, v = qkv.reshape(b, s, 3, nh, hd).transpose(2, 0, 3, 1, 4)
-        scores = (q.astype(jnp.float32)
-                  @ k.astype(jnp.float32).transpose(0, 1, 3, 2) * hd ** -0.5)
-        if seq_len is not None and seq_len != s:
-            scores = jnp.where(jnp.arange(s) < seq_len, scores, -jnp.inf)
-        probs = ref.softmax(scores)
-        ctx = (probs @ v.astype(jnp.float32)).astype(x.dtype)
-        ctx = ctx.transpose(0, 2, 1, 3).reshape(b, s, d)
-        x = x + int8_matmul(ctx, lp["out"]["kernel"], lp["out"]["bias"])
-
-    if resolve_impl(impl) == "pallas":
-        import os
-
-        from vit_tpu.ops.dispatch import interpret_mode
-        from vit_tpu.ops.pallas.block import (mlp_block_i8dot,
-                                              mlp_block_plan_i8,
-                                              mlp_block_q)
-        if mlp_block_plan_i8(b * s, d, cfg.mlp_dim, x.dtype.itemsize):
-            # Kernel tier default: int8-DOT — s8xs8->s32 on the MXU's
-            # double-rate path, probe-confirmed (tools/int8_probe.py,
-            # 243.9 TOPS vs 132.4 TF/s bf16) and measured faster than the
-            # bf16 and weight-only kernels at every batch
-            # (tools/i8dot_bench.py, docs/QUANT.md). Numerics match the
-            # XLA tier (dynamic per-row activation quant).
-            # VIT_TPU_INT8_DOT=0 forces the weight-only streaming kernel
-            # (mlp_block_q): no activation rounding — slightly more
-            # accurate, and within noise of bf16 speed.
-            kern = (mlp_block_q
-                    if os.environ.get("VIT_TPU_INT8_DOT") == "0"
-                    else mlp_block_i8dot)
-            k1, k2 = lp["fc1"]["kernel"], lp["fc2"]["kernel"]
-            return kern(
-                x, lp["ln2"]["scale"], lp["ln2"]["bias"],
-                k1["q"], k1["scale"], lp["fc1"]["bias"],
-                k2["q"], k2["scale"], lp["fc2"]["bias"],
-                eps=eps, interpret=interpret_mode(None))
+    xn = ref.layernorm(x, lp["ln1"]["scale"], lp["ln1"]["bias"], eps=eps)
+    qkv = int8_matmul(xn, lp["qkv"]["kernel"], lp["qkv"]["bias"])
+    qkv = qkv.reshape(b, s, 3, nh, hd)
+    ctx = ops.attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                        scale=hd ** -0.5)
+    x = x + int8_matmul(ctx.reshape(b, s, d), lp["out"]["kernel"],
+                        lp["out"]["bias"])
 
     xn = ref.layernorm(x, lp["ln2"]["scale"], lp["ln2"]["bias"], eps=eps)
     h = int8_matmul(xn, lp["fc1"]["kernel"], lp["fc1"]["bias"],
@@ -244,109 +185,22 @@ def _block_quant(x: jax.Array, lp: Params, cfg: ViTConfig,
     return x + int8_matmul(h, lp["fc2"]["kernel"], lp["fc2"]["bias"])
 
 
-def forward_quant(qparams: Params, pixels: jax.Array, cfg: ViTConfig,
-                  *, impl: str | None = None) -> jax.Array:
+def forward_quant(qparams: Params, pixels: jax.Array,
+                  cfg: ViTConfig) -> jax.Array:
     """ViT forward on int8-quantized encoder weights.
 
     Same contract as :func:`vit_tpu.models.vit.forward` (hidden states,
     pooled embedding, or logits per ``cfg``); ``qparams`` comes from
-    :func:`quantize_params`. ``impl=None`` resolves like the float
-    forward's (pallas on TPU — the docs/QUANT.md default; a ``"xla"``
-    default here once made an A/B probe compare pallas-bf16 against
-    xla-int8 and "measure" a 17% int8 regression); ``impl="pallas"``
-    routes through the int8 mega-kernels.
+    :func:`quantize_params`.
     """
-    from vit_tpu.ops import resolve_impl
-    pallas = resolve_impl(impl) == "pallas"
-    s = cfg.seq_len
-    sp = s
-    if pallas:
-        # Run the WHOLE encoder at a sublane-aligned token count (mirrors
-        # the float forward, vit_tpu/models/vit.py:267-276): the mega-
-        # kernels see aligned tiles, padded keys are masked in-kernel, and
-        # the pad is sliced off after the final LN. The fused embed kernel
-        # emits the padded matrix directly at small batch, so the unpadded
-        # embedding never exists in HBM (same front-end as the float tier).
-        from vit_tpu.ops.pallas.common import round_up
-        sp = round_up(s, 16)
-    x = embed(qparams, pixels, cfg, impl=impl, sp=sp if sp != s else None)
-    if x.shape[1] != sp:
-        x = jnp.pad(x, ((0, 0), (0, sp - s), (0, 0)))
+    x = embed(qparams, pixels, cfg)
 
-    b, d = x.shape[0], cfg.hidden_dim
-    stack = None
-    if pallas:
-        from vit_tpu.ops.pallas.block import (encoder_stack_plan_q,
-                                              encoder_stack_q)
-        # The quant tier routes stack-vs-layers on its OWN tuned entries
-        # (op "encstackq"): on v5e B/16 the per-layer stacked int8-dot
-        # path beats the whole-encoder int8 stack at bs<=2 (0.286 vs
-        # 0.313 ms at bs=1) — the opposite of the float tier's answer.
-        stack = encoder_stack_plan_q(b, sp, d, cfg.mlp_dim, cfg.num_heads,
-                                     x.dtype.itemsize)
-    if stack:
-        # Small-batch latency path: the whole encoder as ONE kernel with
-        # int8 weight streaming — half the bf16 weight traffic that sets
-        # the bs<=2 latency floor (docs/PERF.md §3).
-        from vit_tpu.ops.dispatch import interpret_mode
-        x = encoder_stack_q(x, qparams["encoder"],
-                            num_heads=cfg.num_heads,
-                            scale=cfg.head_dim ** -0.5, seq_len=s,
-                            eps=cfg.layernorm_eps,
-                            interpret=interpret_mode(None))
-    else:
-        stacked = False
-        if pallas:
-            from vit_tpu.ops.pallas.block import (attn_block_q_plan,
-                                                  mlp_block_plan_i8)
-            stacked = (attn_block_q_plan(b, sp, d, cfg.num_heads,
-                                         x.dtype.itemsize) is not None
-                       and mlp_block_plan_i8(b * sp, d, cfg.mlp_dim,
-                                             x.dtype.itemsize) is not None)
-        if stacked:
-            # Stacked-weight scan (mirrors the float tier,
-            # vit_tpu/models/vit.py:299-324): the per-layer mega-kernels
-            # read layer i's int8 weights directly from the stacked
-            # (L, ...) arrays via scalar-prefetch index maps — under
-            # lax.scan the sliced form pays an HBM->HBM copy per layer
-            # first (pallas_call is opaque to XLA).
-            import os
+    def body(x, lp):
+        return _block_quant(x, lp, cfg), None
 
-            from vit_tpu.ops.dispatch import interpret_mode
-            from vit_tpu.ops.pallas.block import (attn_block_q_stacked,
-                                                  mlp_block_q_stacked)
-            enc = qparams["encoder"]
-            i8dot = os.environ.get("VIT_TPU_INT8_DOT") != "0"
-            itp = interpret_mode(None)
-
-            def body(h, i):
-                kq, ko = enc["qkv"]["kernel"], enc["out"]["kernel"]
-                h = attn_block_q_stacked(
-                    h, enc["ln1"]["scale"], enc["ln1"]["bias"],
-                    kq["q"], kq["scale"], enc["qkv"]["bias"],
-                    ko["q"], ko["scale"], enc["out"]["bias"], i,
-                    num_heads=cfg.num_heads, scale=cfg.head_dim ** -0.5,
-                    seq_len=s if sp != s else None,
-                    eps=cfg.layernorm_eps, interpret=itp)
-                k1, k2 = enc["fc1"]["kernel"], enc["fc2"]["kernel"]
-                h = mlp_block_q_stacked(
-                    h, enc["ln2"]["scale"], enc["ln2"]["bias"],
-                    k1["q"], k1["scale"], enc["fc1"]["bias"],
-                    k2["q"], k2["scale"], enc["fc2"]["bias"], i,
-                    eps=cfg.layernorm_eps, i8dot=i8dot, interpret=itp)
-                return h, None
-
-            x, _ = jax.lax.scan(body, x, jnp.arange(cfg.num_layers))
-        else:
-            def body(x, lp):
-                return _block_quant(x, lp, cfg, impl,
-                                    seq_len=s if sp != s else None), None
-
-            x, _ = jax.lax.scan(body, x, qparams["encoder"])
+    x, _ = jax.lax.scan(body, x, qparams["encoder"])
     x = ref.layernorm(x, qparams["ln_final"]["scale"],
                       qparams["ln_final"]["bias"], eps=cfg.layernorm_eps)
-    if sp != s:
-        x = x[:, :s]
 
     if cfg.num_classes:
         pooled = x[:, 0] if cfg.pooling in ("none", "cls") else jnp.mean(x, axis=1)
@@ -359,8 +213,7 @@ def forward_quant(qparams: Params, pixels: jax.Array, cfg: ViTConfig,
     return x
 
 
-def make_forward_quant(cfg: ViTConfig, *, impl: str | None = None,
-                       jit: bool = True):
+def make_forward_quant(cfg: ViTConfig, *, jit: bool = True):
     """Bind config (and optionally jit) — mirror of ``make_forward``."""
-    fn = functools.partial(forward_quant, cfg=cfg, impl=impl)
+    fn = functools.partial(forward_quant, cfg=cfg)
     return jax.jit(fn) if jit else fn

@@ -4,13 +4,9 @@ The reference's roadmap explicitly scopes training out (reference
 README.md:31-33) — this module exists so the framework can also fine-tune the
 classifier variants end-to-end on a device mesh, and to exercise the full
 DP+TP sharded compile path. It is deliberately thin: loss + optax update,
-jitted once; sharding comes entirely from the inputs' ``NamedSharding``s
-(GSPMD propagation), so the same step function runs single-chip or on any
-('data', 'model') mesh.
-
-``make_train_step(impl=...)`` selects the op tier: ``'xla'`` (jnp path,
-differentiable as-is) or ``'pallas'`` (every kernel carries a custom VJP —
-vit_tpu/ops/pallas/vjp.py — so the hand-written tier trains too).
+jitted once; gradients come from XLA autodiff of the forward; sharding
+comes entirely from the inputs' ``NamedSharding``s (GSPMD propagation), so
+the same step function runs on one device or on any ('data', 'model') mesh.
 """
 
 from __future__ import annotations
@@ -27,11 +23,10 @@ from vit_tpu.models.vit import Params, forward
 
 
 def cross_entropy_loss(params: Params, pixels: jax.Array, labels: jax.Array,
-                       cfg: ViTConfig, *, impl: str | None = "xla",
-                       attention: str = "flash") -> jax.Array:
+                       cfg: ViTConfig) -> jax.Array:
     """Mean softmax cross-entropy over a batch of integer labels."""
     assert cfg.num_classes > 0, "training requires a classification head"
-    logits = forward(params, pixels, cfg, impl=impl, attention=attention)
+    logits = forward(params, pixels, cfg)
     logp = jax.nn.log_softmax(logits.astype(jnp.float32))
     nll = -jnp.take_along_axis(logp, labels[:, None], axis=-1)[:, 0]
     return jnp.mean(nll)
@@ -43,46 +38,18 @@ def make_optimizer(learning_rate: float = 1e-4,
 
 
 def make_train_step(cfg: ViTConfig,
-                    optimizer: optax.GradientTransformation | None = None,
-                    *, impl: str | None = "xla", attention: str = "flash",
-                    mesh=None):
+                    optimizer: optax.GradientTransformation | None = None):
     """Returns ``(init_fn, step_fn)``, both jitted.
 
     ``init_fn(params) -> opt_state`` (inherits params' shardings);
     ``step_fn(params, opt_state, pixels, labels) -> (params, opt_state, loss)``.
-    ``impl='pallas'`` runs forward AND backward on the hand-written kernel
-    tier via the custom VJPs (vit_tpu/ops/pallas/vjp.py).
 
-    Distribution: on the xla tier, sharding comes entirely from the inputs'
-    ``NamedSharding``s (GSPMD, DP x Megatron-TP). The pallas tier has no
-    GSPMD partitioning rules, so pass ``mesh=`` for explicit batch-DP: the
-    per-shard grads are computed by the unmodified single-device kernels
-    under ``jax.shard_map`` and averaged with ``lax.pmean`` over 'data' —
-    the collective rides ICI, params/optimizer state stay replicated.
+    Distribution: sharding comes entirely from the inputs'
+    ``NamedSharding``s (GSPMD, DP x Megatron-TP; vit_tpu/parallel/mesh.py).
     """
     optimizer = optimizer or make_optimizer()
-
-    def local_grad_fn(params: Params, pixels: jax.Array, labels: jax.Array):
-        return jax.value_and_grad(cross_entropy_loss)(
-            params, pixels, labels, cfg, impl=impl, attention=attention)
-
-    grad_fn = local_grad_fn
-
-    from vit_tpu.ops import resolve_impl
-    if mesh is not None and resolve_impl(impl) == "pallas":
-        from jax.sharding import PartitionSpec as P
-        assert mesh.shape["model"] == 1, (
-            "pallas training shards the batch only; use impl='xla' for TP")
-
-        def dp_grad_fn(params, pixels, labels):
-            loss, grads = local_grad_fn(params, pixels, labels)
-            # Equal shards: pmean of per-shard means == global batch mean.
-            return jax.lax.pmean((loss, grads), "data")
-
-        grad_fn = jax.shard_map(dp_grad_fn, mesh=mesh,
-                                in_specs=(P(), P("data"), P("data")),
-                                out_specs=(P(), P()),
-                                check_vma=False)  # pallas_call carries no vma
+    grad_fn = jax.value_and_grad(
+        functools.partial(cross_entropy_loss, cfg=cfg))
 
     @jax.jit
     def init_fn(params: Params):

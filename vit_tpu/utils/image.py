@@ -1,4 +1,4 @@
-"""Image preprocessing for ViT inference, jit-able on TPU.
+"""Image preprocessing for ViT inference, jit-able on the device.
 
 The reference has no preprocessing — it benchmarks on random tensors — but
 a serving stack needs the HF ``ViTImageProcessor`` semantics on-device:

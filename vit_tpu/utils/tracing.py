@@ -4,7 +4,7 @@ The reference logs function entry/exit and every tensor arg/result shape via
 loguru (reference vit/utils.py:18-42) with commented-out attach points at each
 module forward. Here the decorator additionally wraps the call in
 ``jax.named_scope`` so the function shows up as a labeled region in
-``jax.profiler`` traces — the TPU equivalent of reading launch names in
+``jax.profiler`` traces — the equivalent of reading launch names in
 nsight.
 """
 
@@ -34,7 +34,7 @@ def tensor_info(fn=None, *, name: str | None = None):
 
     Mirrors reference vit/utils.py:18-42. Works on traced values (logs
     abstract shapes at trace time — once per compilation, not per step,
-    which is the honest TPU semantics: there is no per-step host hook
+    which is the honest XLA semantics: there is no per-step host hook
     inside a jitted program).
     """
     def deco(f):

@@ -7,8 +7,7 @@ an all-ones structural-debug mode (cells 15-18). This is that workflow as a
 first-class command:
 
     python -m vit_tpu.verify [--checkpoint PATH_OR_HF_ID] [--batch 2]
-                             [--impl xla|pallas] [--attention flash|unfused]
-                             [--ones] [--variant-config ...]
+                             [--ones] [--hidden ... --patch ...]
 
 Without ``--checkpoint`` (or when offline) the oracle is a randomly
 initialized ``transformers.ViTModel`` built from config — the weight-mapping
@@ -25,7 +24,6 @@ import numpy as np
 
 
 def run_verification(hf_model, *, batch: int = 2, seed: int = 0,
-                     impl: str | None = None, attention: str = "flash",
                      tol: float = 1e-3) -> bool:
     import jax.numpy as jnp
     import torch
@@ -43,8 +41,7 @@ def run_verification(hf_model, *, batch: int = 2, seed: int = 0,
         hf_out = hf_model(torch.from_numpy(px), output_hidden_states=True)
     import functools
     import jax
-    fwd = jax.jit(functools.partial(vit.forward_with_intermediates,
-                                    cfg=cfg, impl=impl, attention=attention))
+    fwd = jax.jit(functools.partial(vit.forward_with_intermediates, cfg=cfg))
     ours, hiddens = fwd(params, jnp.asarray(px))
 
     print(f"{'layer':<28} {'shape':<20} {'max|diff|':>12}")
@@ -72,9 +69,6 @@ def main(argv=None) -> int:
                     help="HF model id or local path (omit for random init)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--impl", default=None, choices=["xla", "pallas"])
-    ap.add_argument("--attention", default="flash",
-                    choices=["flash", "unfused"])
     ap.add_argument("--tol", type=float, default=None,
                     help="default 1e-3; 1e-2 with --ones (constant weights "
                          "make rows near-identical, so the final LN divides "
@@ -137,7 +131,6 @@ def main(argv=None) -> int:
         hf.load_state_dict(sd)
 
     ok = run_verification(hf, batch=args.batch, seed=args.seed,
-                          impl=args.impl, attention=args.attention,
                           tol=args.tol)
     return 0 if ok else 1
 

@@ -120,7 +120,7 @@ def save_train_state(path: str, params: Params, opt_state, step: int) -> None:
     """Orbax checkpoint of a full training state (params + optimizer state +
     step counter) — the resume side of the training tier. The reference is
     inference-only with no save path at all (SURVEY.md §5 checkpoint row);
-    this is the TPU-native equivalent done properly: one composite pytree,
+    this is the JAX-native equivalent done properly: one composite pytree,
     per-device shard writes, restores onto any mesh via ``like`` shardings."""
     import orbax.checkpoint as ocp
 

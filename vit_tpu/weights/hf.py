@@ -1,13 +1,13 @@
 """HuggingFace ViT -> vit_tpu params import.
 
-The TPU-native rework of the reference's weight-transfer path
+The JAX-native rework of the reference's weight-transfer path
 (reference vit/utils.py:45-113 ``transfer_pretrained_weights``,
 reference vit/load_weights.py:11-62 ``map_attn_layers``/``map_non_attn_layers``).
 
 Design decisions, made explicitly (SURVEY.md §7 checklist 3):
 
-- **Weight convention is (in, out)** so every linear is ``x @ W`` on the MXU
-  with no transposes in the hot path (the reference made the same call —
+- **Weight convention is (in, out)** so every linear is a plain ``x @ W``
+  GEMM with no transposes in the hot path (the reference made the same call —
   its ``LinearWithBias`` stores (in, out), reference vit/vit.py:25-35 — and
   paid one-time ``.t()`` at load, reference load_weights.py:51-53).
 - **QKV stays fused — wider, not split.** The reference splits HF's
